@@ -9,8 +9,10 @@
 # CPU image (tests + virtual 8-device SPMD suite):
 #   docker build -t tpufem .
 #   docker run tpufem python -m pytest tests/ -q
-# On a TPU VM, base on the matching libtpu image instead and install
-# jax[tpu]==0.9.0; everything else is identical.
+# On an NVIDIA GPU host, install JAX with its CUDA plugin instead
+# (pip install "jax[cuda12]==0.9.0", or base on an image that carries
+# the CUDA toolkit) and drop the JAX_PLATFORMS=cpu line below;
+# everything else is identical.
 FROM python:3.12-slim
 
 RUN apt-get update \
@@ -21,7 +23,7 @@ WORKDIR /opt/tpufem
 COPY pyproject.toml README.md ./
 COPY tpufem ./tpufem
 COPY tests ./tests
-COPY bench.py ./
+COPY bench.py chip_smoke.py ./
 
 # pinned versions resolve from pyproject.toml; [dev] adds pytest + h5py
 RUN pip install --no-cache-dir -e ".[dev]"

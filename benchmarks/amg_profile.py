@@ -1,7 +1,7 @@
 """Per-component timing of the SA-AMG V-cycle on the AMG-forced cube.
 
-Pinpoints where the solve time goes (VERDICT r2 weak #3: the 227k
-AMG-forced solve runs ~100x slower per dof*iter than the GMG path).
+Pinpoints where the solve time goes (the AMG-forced solve costs far
+more per dof*iteration than the GMG path).
 Times, each as its own pipelined jitted dispatch:
 
   - fine stencil apply (the matrix-free fine_matvec hook)

@@ -1,5 +1,5 @@
-"""Per-stage timing of the elasticity SA-AMG V-cycle at 500k (VERDICT r4
-weak #1: 71 ms/iter unexplained).  Run: python benchmarks/el_amg_profile.py"""
+"""Per-stage timing of the elasticity SA-AMG V-cycle at 500k.
+Run: python benchmarks/el_amg_profile.py"""
 import sys, time
 sys.path.insert(0, ".")
 from tpufem.config import Config, SolverOptions, enable_compilation_cache

@@ -1,11 +1,11 @@
 """Weak-scaling driver — the reference's primary measurement
-(/root/reference/README.md:63-128: N dofs per rank, rank count swept).
+(README.md:63-128 of the reference: N dofs per rank, rank count swept).
 
 Runs the CLI solve at a fixed per-shard dof count over a sweep of shard
 counts and prints the scaling table: iterations (must stay flat —
 mesh-independent multigrid), solve seconds, and per-shard throughput.
 
-On a real multi-chip TPU slice this measures ICI scaling; on a
+On a multi-GPU host this measures scaling over the device links; on a
 single-host dev box use the virtual CPU mesh:
 
     JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \

@@ -1,5 +1,5 @@
 """Kernel + assembly tests against an independent dense quadrature reference
-(the strategy SURVEY.md prescribes: verify Pallas/XLA kernels vs dense numpy
+(the strategy SURVEY.md prescribes: verify the XLA kernels vs dense numpy
 assembly on tiny meshes)."""
 
 import numpy as np

@@ -184,3 +184,18 @@ def test_negative_option_value():
     """'-key -1e-6' parses the negative number as the value."""
     cfg = parse_args(["--problem_type", "poisson", "-cg_damping", "-0.5"])
     assert cfg.solver.extra["cg_damping"] == -0.5
+
+
+@pytest.mark.parametrize("order,option,value", [(1, "use_pallas", "1"),
+                                                (2, "cg_kernel", "on")])
+def test_removed_kernel_options_are_unused(order, option, value, caplog):
+    """The removed kernel switches are no longer options: the
+    -options_left audit reports them."""
+    import logging
+    with caplog.at_level(logging.WARNING, logger="tpufem"):
+        it, norm = run_cli(["--problem_type", "cgpoisson", "--ndofs", "3000",
+                            "--order", str(order), "--num_shards", "1",
+                            f"-{option}", value])
+    assert 0 < it <= 100 and np.isfinite(norm)
+    assert any(f"unused solver option '{option}'" in r.getMessage()
+               for r in caplog.records)

@@ -185,7 +185,7 @@ def test_zone_apply_matches_host_twin_p1():
 
 @pytest.mark.parametrize("dims", [(9, 8, 10), (4, 4, 4)])
 def test_planar_apply_matches_interleaved(dims):
-    """Component-planar bs=3 layout (the TPU-fast elasticity form) is a
+    """Component-planar bs=3 layout (the production elasticity form) is a
     pure permutation of the node-interleaved operator: apply, diagonal
     and bc mask must all agree under the permutation (const-mode zones
     and the small-lattice dense fallback)."""
@@ -231,7 +231,7 @@ def test_dia_triple_count_p1():
                                         (2, (6, 6, 6)), (3, (6, 7, 6)),
                                         (1, (8, 9, 10))])
 def test_conv_op_matches_const(order, dims):
-    """The MXU channel-conv operator (bulk conv + inclusion-exclusion
+    """The channel-conv operator (bulk conv + inclusion-exclusion
     boundary contractions) equals the const-table DIA apply exactly
     (same matrix, reorganized; f64)."""
     from tpufem.fem.conv_op import ConvStencilOp

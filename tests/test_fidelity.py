@@ -2,7 +2,7 @@
 
 The reference solves in double precision end-to-end (PetscScalar =
 double, src/poisson_problem.cpp:27) with ``-ksp_rtol 1.0e-8``
-(README.md:72).  The TPU production path solves in float32, where the
+(README.md:72).  The f32 production path solves in float32, where the
 CG recurrence residual keeps contracting after the TRUE residual
 ||b - A x|| / ||b|| has stalled near f32 working precision (~2e-5
 measured at 50k dofs).  tpufem closes the gap with mixed-precision

@@ -3,8 +3,7 @@ float64 host twin it is built from.
 
 The flat form must be the SAME matrix: interior stacked weights +
 per-plane z deltas + inclusion-exclusion slab corrections reproduce
-dia.apply_np to f32 rounding.  Covers both the XLA twin (production
-fallback) and the Pallas kernel in interpret mode."""
+dia.apply_np to f32 rounding."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -32,7 +31,7 @@ def _build(order, dims):
 @pytest.mark.parametrize("order,dims", [(2, (8, 9, 10)), (3, (8, 8, 9))])
 def test_flat_matches_dia_xla(order, dims):
     dia = _build(order, dims)
-    op = FlatOperator.from_dia(dia, use_pallas=False)
+    op = FlatOperator.from_dia(dia)
     assert op is not None
     rng = np.random.default_rng(0)
     x = rng.standard_normal(dia.layout.ndofs)
@@ -44,7 +43,7 @@ def test_flat_matches_dia_xla(order, dims):
 
 def test_flat_roundtrip_layout():
     dia = _build(3, (8, 8, 9))
-    op = FlatOperator.from_dia(dia, use_pallas=False)
+    op = FlatOperator.from_dia(dia)
     rng = np.random.default_rng(1)
     x = rng.standard_normal(dia.layout.ndofs).astype(np.float32)
     back = np.asarray(op.from_flat(op.to_flat(jnp.asarray(x))))
@@ -80,13 +79,3 @@ def test_use_flat_cg_parity():
     scale = np.abs(x_ref).max()
     assert np.abs(x_flat - x_ref).max() < 1e-4 * scale
 
-
-def test_flat_matches_dia_pallas_interpret():
-    dia = _build(3, (8, 8, 9))
-    op = FlatOperator.from_dia(dia, use_pallas=True)  # interpret on CPU
-    rng = np.random.default_rng(2)
-    x = rng.standard_normal(dia.layout.ndofs)
-    ref = dia.apply_np(x)
-    got = np.asarray(op.apply(jnp.asarray(x, dtype=jnp.float32)))
-    scale = np.abs(ref).max()
-    assert np.abs(got - ref).max() < 2e-5 * scale

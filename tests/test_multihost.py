@@ -22,6 +22,8 @@ from tpufem.mesh import BoxTetMesh
 from tpufem.parallel.slab import ShardedCubeSolver
 from tpufem.parallel import multihost
 
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
 
 @pytest.mark.parametrize("problem,order,precond", [
     ("poisson", 1, True), ("elasticity", 1, True),
@@ -115,7 +117,7 @@ def test_two_process_smoke():
         outs = [os.path.join(td, f"out{i}.json") for i in range(2)]
         procs = [subprocess.Popen(
             [sys.executable, script, str(i), str(port), outs[i]],
-            env=env, cwd="/root/repo", stdout=subprocess.PIPE,
+            env=env, cwd=REPO, stdout=subprocess.PIPE,
             stderr=subprocess.PIPE) for i in range(2)]
         rcs = [p.wait(timeout=600) for p in procs]
         if any(rc != 0 for rc in rcs):
@@ -161,7 +163,7 @@ def _cli_parity(args, nproc: int = 8):
     env1 = dict(base_env,
                 XLA_FLAGS=f"--xla_force_host_platform_device_count={nproc}")
     r = subprocess.run([sys.executable, "-m", "tpufem"] + args,
-                       env=env1, cwd="/root/repo", capture_output=True,
+                       env=env1, cwd=REPO, capture_output=True,
                        text=True, timeout=900)
     assert r.returncode == 0, r.stderr[-2000:]
     it1, norm1 = _parse_cli(r.stdout)
@@ -179,7 +181,7 @@ def _cli_parity(args, nproc: int = 8):
                    TPUFEM_PROCESS_ID=str(pid))
         procs.append(subprocess.Popen(
             [sys.executable, "-m", "tpufem"] + args, env=env,
-            cwd="/root/repo", stdout=subprocess.PIPE,
+            cwd=REPO, stdout=subprocess.PIPE,
             stderr=subprocess.PIPE, text=True))
     outs = [p.communicate(timeout=900) for p in procs]
     rcs = [p.returncode for p in procs]

@@ -194,7 +194,7 @@ def test_rowshard_vcycle_comm_payload():
     smoother halos is ONE coarse-sized psum: the program must contain NO
     all_gather, and every psum payload is at most the first-coarse size
     (guards against regressing to the fine-residual all-gather this
-    replaced — VERDICT r2 weak #2)."""
+    replaced)."""
     mesh = BoxTetMesh(8, 9, 10)
     space = FunctionSpace(mesh, 2)
     bc = DirichletBC.from_space(

@@ -49,7 +49,7 @@ def test_strip_matches_dia(order, dims):
 
 
 def test_strip_output_padding_stays_clean():
-    """Pad/guard lanes and out-of-extent sublanes of the apply output
+    """Pad/guard columns and out-of-extent rows of the apply output
     are exactly zero, so a channel-resident CG never contaminates
     dot products."""
     mesh = BoxTetMesh(8, 9, 8)
@@ -102,77 +102,22 @@ def test_strip_cg_end_to_end():
     np.testing.assert_allclose(x_s, np.asarray(x_d), rtol=1e-4, atol=1e-6)
 
 
+
 @pytest.mark.parametrize("order,dims", [(2, (8, 9, 10)), (3, (8, 8, 9))])
-def test_strip_pallas_matches_xla(order, dims):
-    """The VMEM-resident Pallas kernel (interpret mode on CPU) computes
-    the same apply as the XLA twin, hence the same matrix."""
+def test_strip_f32_matches_f64_reference(order, dims):
+    """In float32 the strip apply stays within the smoke test's parity
+    tolerance (rel-L2 1e-5) of the float64 host reference."""
     mesh = BoxTetMesh(*dims)
     space, bc = _bc_dofs(mesh, order)
-    dia = DiaOperator.try_const(mesh, order, "poisson",
+    ref = DiaOperator.try_const(mesh, order, "poisson",
                                 bc_dofs=bc.flat_dofs(), dtype=jnp.float64,
                                 device=False)
-    xla_op = StripOperator.from_dia(dia, dtype=jnp.float64,
-                                    use_pallas=False)
-    pal_op = StripOperator.from_dia(dia, dtype=jnp.float64,
-                                    use_pallas=True)
-    assert pal_op.use_pallas and not xla_op.use_pallas
-    rng = np.random.default_rng(7)
-    u = jnp.asarray(rng.standard_normal(space.ndofs))
-    xf = xla_op.to_strips(u)
-    y_x = np.asarray(xla_op.apply_strips(xf))
-    y_p = np.asarray(pal_op.apply_strips(xf))
-    np.testing.assert_allclose(y_p, y_x, rtol=1e-13, atol=1e-13)
-    y_ref = dia.apply_np(np.asarray(u))
-    np.testing.assert_allclose(np.asarray(pal_op.from_strips(jnp.asarray(y_p))),
-                               y_ref, rtol=1e-13, atol=1e-13)
-
-
-@pytest.mark.parametrize("order,dims,maxit", [(1, (9, 8, 10), 120),
-                                              (2, (6, 6, 7), 300)])
-def test_strip_cg_pallas_whole_solve(order, dims, maxit):
-    """The whole-CG VMEM-resident kernel (cg_pallas, interpret mode on
-    CPU) reproduces cg_solve_fused on the same strip operator: same
-    iteration count, converged recurrence residual, same solution."""
-    from tpufem.la.cg import cg_solve_fused
-    mesh = BoxTetMesh(*dims)
-    space, bc = _bc_dofs(mesh, order)
-    dia = DiaOperator.try_const(mesh, order, "poisson",
-                                bc_dofs=bc.flat_dofs(), dtype=jnp.float64,
-                                device=False)
-    op = StripOperator.from_dia(dia, dtype=jnp.float64, use_pallas=True)
-    assert op is not None and op.kplan is not None
-    rng = np.random.default_rng(5)
-    b_np = rng.standard_normal(space.ndofs)
-    b_np[bc.flat_dofs()] = 0.0
-    b = jnp.asarray(b_np)
-    rf = op.to_strips(b)
-
-    x_ref, it_ref, rel_ref = jax.jit(
-        lambda r: cg_solve_fused(op.apply_strips, r, x0=None, rtol=1e-8,
-                                 maxit=maxit))(rf)
-    x_k, it_k, rel_k = jax.jit(
-        lambda r: op.cg_pallas(r, rtol=1e-8, maxit=maxit))(rf)
-    assert float(rel_ref) < 1e-8  # the reference loop must converge
-    assert abs(int(it_k) - int(it_ref)) <= 1
-    assert float(rel_k) < 1e-8
-    xs = np.asarray(op.from_strips(x_k))
-    r = b_np - dia.apply_np(xs)
-    assert np.linalg.norm(r) / np.linalg.norm(b_np) < 1e-7
-    np.testing.assert_allclose(xs, np.asarray(op.from_strips(x_ref)),
-                               rtol=1e-4, atol=1e-6)
-
-
-def test_strip_cg_pallas_maxit_cap():
-    """With an unreachable tolerance the kernel runs exactly maxit
-    iterations and reports the recurrence residual at the cap."""
-    mesh = BoxTetMesh(8, 8, 8)
-    space, bc = _bc_dofs(mesh, 1)
-    dia = DiaOperator.try_const(mesh, 1, "poisson", bc_dofs=bc.flat_dofs(),
-                                dtype=jnp.float64, device=False)
-    op = StripOperator.from_dia(dia, dtype=jnp.float64, use_pallas=True)
-    rng = np.random.default_rng(6)
-    b_np = rng.standard_normal(space.ndofs)
-    b_np[bc.flat_dofs()] = 0.0
-    rf = op.to_strips(jnp.asarray(b_np))
-    _, it, rel = op.cg_pallas(rf, rtol=1e-30, maxit=7)
-    assert int(it) == 7 and float(rel) > 0.0
+    dia32 = DiaOperator.try_const(mesh, order, "poisson",
+                                  bc_dofs=bc.flat_dofs(), dtype=jnp.float32)
+    op = StripOperator.from_dia(dia32, dtype=jnp.float32)
+    rng = np.random.default_rng(11)
+    u = rng.standard_normal(space.ndofs).astype(np.float32)
+    y = np.asarray(jax.jit(lambda v: op.from_strips(
+        op.apply_strips(op.to_strips(v))))(jnp.asarray(u)), np.float64)
+    y_ref = ref.apply_np(u.astype(np.float64))
+    assert np.linalg.norm(y - y_ref) / np.linalg.norm(y_ref) <= 1e-5

@@ -2,7 +2,7 @@
 
 Replaces ``fem::assemble_matrix`` / ``fem::assemble_vector`` + PETSc
 MatSetValues (reference: src/poisson_problem.cpp:122-157,
-src/elasticity_problem.cpp:196-229).  TPU has no atomic scatter, so:
+src/elasticity_problem.cpp:196-229).  No atomic scatter is needed:
 
 - matrix assembly runs at setup: element tensors are computed in batched
   device kernels (tpufem.fem.kernels), then deduped host-side into CSR /
@@ -84,7 +84,7 @@ def coo_to_csr(rows: np.ndarray, cols: np.ndarray, vals: np.ndarray,
 class ELLMatrix:
     """Fixed-width padded sparse matrix (scalar or bs x bs blocked).
 
-    The TPU-friendly replacement of PETSc MatAIJ for SpMV: row data is a
+    The replacement of PETSc MatAIJ for SpMV: row data is a
     dense [N, K] gather + reduction, no indirection chains, static shapes.
     Padding entries point at row 0 with zero value.
 
@@ -164,7 +164,7 @@ def csr_to_ell(indptr: np.ndarray, indices: np.ndarray, data: np.ndarray,
                k_cap=None) -> ELLMatrix:
     """``k_cap``: cap the padded width and spill longer rows' tails into
     the COO overflow (exact matvec either way).  "auto" picks the cap
-    minimizing the TPU gather cost model N*K + 2.5*overflow_nnz — worth
+    minimizing the gather cost model N*K + 2.5*overflow_nnz — worth
     ~2x on graphs with a degree tail (spoke hub: max 45 vs mean 13.5).
     None (default) keeps the classic full-width padding; ``pad_to``
     (shard-aligned stacking) is incompatible with capping."""
@@ -227,7 +227,7 @@ def csr_to_ell(indptr: np.ndarray, indices: np.ndarray, data: np.ndarray,
 @jax.tree_util.register_pytree_node_class
 class DofScatter:
     """Precomputed sorted segment-sum scatter from cell-local contributions
-    to the global dof vector (the no-atomics TPU replacement for the
+    to the global dof vector (the no-atomics replacement for the
     add-mode VecSetValues / ghost accumulation of the reference)."""
 
     def __init__(self, cell_dofs: np.ndarray, ndofs_scalar: int, bs: int = 1,

@@ -1,24 +1,16 @@
-"""High-order lattice operator as an MXU channel convolution.
+"""High-order lattice operator as a channel convolution.
 
 The const-table DIA operator (fem/dia_op.py) evaluates P2/P3 applies as
-~1300 scalar-weighted shifted-slice passes on the VPU.  This module maps
-the SAME matrix onto the MXU: every cube of the lattice owns exactly one
-entity of each (kind, slot) pair (P2 scalar: 8, P3 scalar: 27), so the
-dof vector reshapes into a dense channel tensor ``[Gz, Gy, Gx, C]`` over
-cube anchors, and the interior of the operator is ONE 3x3x3 channel
-convolution ``[C -> C]``.
+~1300 scalar-weighted shifted-slice passes.  This module maps the SAME
+matrix onto dense contractions: every cube of the lattice owns exactly
+one entity of each (kind, slot) pair (P2 scalar: 8, P3 scalar: 27), so
+the dof vector reshapes into a dense channel tensor ``[Gz, Gy, Gx, C]``
+over cube anchors, and the interior of the operator is ONE 3x3x3
+channel convolution ``[C -> C]``.
 
-MEASURED SLOWER than the DIA form on v5e — kept as an opt-in
-(-use_conv) compile-size escape hatch, not a performance path.  In-loop
-fori measurements at ~517k P3 dofs: full conv apply 19.1 ms (even
-channel-resident, no per-iteration relayout) vs 0.87 ms for the DIA
-zone apply.  The cost decomposes as: bulk 3^3x27-channel conv 0.80 ms
-(HIGHEST) / 0.38 ms (DEFAULT), but EACH boundary-correction einsum
-("tpabc,ptcd->pabd" patch contractions) lowers to ~3 ms of relayout on
-this toolchain — 26 of them dominate everything.  An earlier header
-claimed 0.04-0.11 ms/apply for this form; that number came from a
-mis-timed async measurement and is wrong (VERDICT r3 asked to
-reconcile; the numbers above are scalar-readback-barriered).
+Opt-in (-use_conv) as a compile-size escape hatch: its HLO is ~27 dense
+ops where the fused-slice DIA form has ~1300 slices.  The fused-slice
+form stays the default.
 
 Boundary exactness.  Near the lattice faces the weights deviate from
 the interior constants (grid truncation + baked Dirichlet elimination).
@@ -39,17 +31,14 @@ inclusion-exclusion).  The apply is then
                  +  12 edge contractions (thin pencils)
                  +  8 corner contractions (tiny blocks)
 
-— 27 dense einsum/conv ops total, all MXU-shaped, O(surface) extra
-traffic, and a compact HLO (no per-term slicing).
-
-Precision: TPU MXU multiplies in bfloat16; ``precision=HIGHEST``
-(bf16_6x) reproduces f32 products for the bulk conv and is the default.
-The boundary contractions are small and always run HIGHEST.  On CPU
-(f64 golden tests) XLA convolves in full f64.
+— 27 dense einsum/conv ops total, O(surface) extra traffic, and a
+compact HLO (no per-term slicing).  Products run at the package's one
+matmul precision (tpufem.aot).
 
 Parity: this is the reference's assembled operator on the cube path
 (src/poisson_problem.cpp:117-141 builds it with FFCx kernels; here the
-matrix IS the translation-invariant stencil, reorganized for the MXU).
+matrix IS the translation-invariant stencil, reorganized as a
+convolution).
 """
 
 from __future__ import annotations
@@ -90,7 +79,6 @@ class ConvStencilOp:
     bc_mask: jnp.ndarray       # flat [ndofs] bool
     layout: object             # GridLayout (static)
     gdims: Tuple[int, int, int]  # (Gz, Gy, Gx) common channel grid (static)
-    prec: str = "highest"      # bulk conv precision (static)
     chan_mask: Optional[jnp.ndarray] = None  # [Gz,Gy,Gx,C] 1.0 on real
     #                            dofs, 0.0 on phantom channel entries
     #                            (kind grids one plane short of G*) —
@@ -100,18 +88,18 @@ class ConvStencilOp:
     def tree_flatten(self):
         return ((self.Kc, self.Kfaces, self.Kedges, self.Kcorners,
                  self.bc_mask, self.chan_mask),
-                (self.layout, self.gdims, self.prec))
+                (self.layout, self.gdims))
 
     @classmethod
     def tree_unflatten(cls, aux, children):
         Kc, Kf, Ke, Kco, bc, cm = children
-        layout, gdims, prec = aux
-        return cls(Kc, Kf, Ke, Kco, bc, layout, gdims, prec, cm)
+        layout, gdims = aux
+        return cls(Kc, Kf, Ke, Kco, bc, layout, gdims, cm)
 
     # -- construction -------------------------------------------------------
     @classmethod
-    def from_dia(cls, dia: DiaOperator, dtype=jnp.float32,
-                 prec: str = "highest") -> "ConvStencilOp":
+    def from_dia(cls, dia: DiaOperator, dtype=jnp.float32
+                 ) -> "ConvStencilOp":
         """Build from a const-mode scalar DiaOperator (raises ValueError
         otherwise).  All kernel extraction is numpy on the host."""
         if dia.bs != 1:
@@ -253,7 +241,7 @@ class ConvStencilOp:
             Kcorners=tuple(dev(jnp.asarray(k.astype(npdt)))
                            for k in Kcorners),
             bc_mask=dev(jnp.asarray(np.asarray(dia.bc_mask))),
-            layout=lay, gdims=(Gz, Gy, Gx), prec=prec,
+            layout=lay, gdims=(Gz, Gy, Gx),
             chan_mask=dev(jnp.asarray(cmask)))
 
     # -- apply --------------------------------------------------------------
@@ -321,45 +309,9 @@ class ConvStencilOp:
 
     def _apply_interior(self, xp: jnp.ndarray) -> jnp.ndarray:
         Gz, Gy, Gx = self.gdims
-        prec_bulk = (jax.lax.Precision.HIGHEST if self.prec == "highest"
-                     else jax.lax.Precision.DEFAULT)
-        hi = jax.lax.Precision.HIGHEST
-        if self.prec == "dot":
-            # 27 tap-shifted [N, C] @ [C, C] dot accumulations instead
-            # of one C-channel conv: XLA's conv lowering materializes
-            # im2col copies; the explicit form reads each shifted slice
-            # once, straight into the contraction
-            Gz_, Gy_, Gx_ = self.gdims
-            y = None
-            for dz in (-1, 0, 1):
-                for dy in (-1, 0, 1):
-                    for dx in (-1, 0, 1):
-                        sl = xp[dz + 1: dz + 1 + Gz_,
-                                dy + 1: dy + 1 + Gy_,
-                                dx + 1: dx + 1 + Gx_, :]
-                        k = self.Kc[dz + 1, dy + 1, dx + 1]
-                        t = jnp.einsum("zyxc,cd->zyxd", sl, k,
-                                       precision=hi)
-                        y = t if y is None else y + t
-        elif self.prec == "split3":
-            # manual bf16x3: one DEFAULT-precision conv per split product
-            xh = xp.astype(jnp.bfloat16).astype(xp.dtype)
-            xl = xp - xh
-            kh = self.Kc.astype(jnp.bfloat16).astype(xp.dtype)
-            kl = self.Kc - kh
-
-            def cv(v, k):
-                return jax.lax.conv_general_dilated(
-                    v[None], k, window_strides=(1, 1, 1), padding="VALID",
-                    dimension_numbers=("NDHWC", "DHWIO", "NDHWC"),
-                    precision=jax.lax.Precision.DEFAULT)[0]
-            y = cv(xh, kh) + cv(xl, kh) + cv(xh, kl)
-        else:
-            y = jax.lax.conv_general_dilated(
-                xp[None], self.Kc, window_strides=(1, 1, 1),
-                padding="VALID",
-                dimension_numbers=("NDHWC", "DHWIO", "NDHWC"),
-                precision=prec_bulk)[0]
+        y = jax.lax.conv_general_dilated(
+            xp[None], self.Kc, window_strides=(1, 1, 1), padding="VALID",
+            dimension_numbers=("NDHWC", "DHWIO", "NDHWC"))[0]
 
         (zl0, zl1), (zh0, zh1) = _axis_windows(Gz)
         (yl0, yl1), (yh0, yh1) = _axis_windows(Gy)
@@ -375,18 +327,15 @@ class ConvStencilOp:
         for e in (0, 1):
             a0, a1 = zw[e]
             p = self._patches(xp, a0, a1, 0, Gy, 0, Gx)
-            t = jnp.einsum("tpabc,ptcd->pabd", p, self.Kfaces[0 + e],
-                           precision=hi)
+            t = jnp.einsum("tpabc,ptcd->pabd", p, self.Kfaces[0 + e])
             y = y.at[a0:a1, :, :, :].add(t)
             b0, b1 = yw[e]
             p = self._patches(xp, 0, Gz, b0, b1, 0, Gx)
-            t = jnp.einsum("tzpbc,ptcd->zpbd", p, self.Kfaces[2 + e],
-                           precision=hi)
+            t = jnp.einsum("tzpbc,ptcd->zpbd", p, self.Kfaces[2 + e])
             y = y.at[:, b0:b1, :, :].add(t)
             c0_, c1_ = xw[e]
             p = self._patches(xp, 0, Gz, 0, Gy, c0_, c1_)
-            t = jnp.einsum("tzapc,ptcd->zapd", p, self.Kfaces[4 + e],
-                           precision=hi)
+            t = jnp.einsum("tzapc,ptcd->zapd", p, self.Kfaces[4 + e])
             y = y.at[:, :, c0_:c1_, :].add(t)
 
         # edges
@@ -402,18 +351,15 @@ class ConvStencilOp:
             (b0, b1) = axw[aj][ej]
             if ai == 0 and aj == 1:
                 p = self._patches(xp, a0, a1, b0, b1, 0, Gx)
-                t = jnp.einsum("tpqbc,pqtcd->pqbd", p, self.Kedges[eidx],
-                               precision=hi)
+                t = jnp.einsum("tpqbc,pqtcd->pqbd", p, self.Kedges[eidx])
                 y = y.at[a0:a1, b0:b1, :, :].add(t)
             elif ai == 0 and aj == 2:
                 p = self._patches(xp, a0, a1, 0, Gy, b0, b1)
-                t = jnp.einsum("tpaqc,pqtcd->paqd", p, self.Kedges[eidx],
-                               precision=hi)
+                t = jnp.einsum("tpaqc,pqtcd->paqd", p, self.Kedges[eidx])
                 y = y.at[a0:a1, :, b0:b1, :].add(t)
             else:
                 p = self._patches(xp, 0, Gz, a0, a1, b0, b1)
-                t = jnp.einsum("tzpqc,pqtcd->zpqd", p, self.Kedges[eidx],
-                               precision=hi)
+                t = jnp.einsum("tzpqc,pqtcd->zpqd", p, self.Kedges[eidx])
                 y = y.at[:, a0:a1, b0:b1, :].add(t)
             eidx += 1
 
@@ -424,8 +370,7 @@ class ConvStencilOp:
             (b0, b1) = yw[ey]
             (c0_, c1_) = xw[ex]
             p = self._patches(xp, a0, a1, b0, b1, c0_, c1_)
-            t = jnp.einsum("tpqrc,pqrtcd->pqrd", p, self.Kcorners[cidx],
-                           precision=hi)
+            t = jnp.einsum("tpqrc,pqrtcd->pqrd", p, self.Kcorners[cidx])
             y = y.at[a0:a1, b0:b1, c0_:c1_, :].add(t)
 
         return y

@@ -1,49 +1,37 @@
-"""Flat-channel P2/P3 stencil operator: one Pallas matmul kernel over
-z-planes + thin slab corrections.
+"""Flat-channel P2/P3 stencil operator: one matrix product per z-plane
++ thin slab corrections.
 
 The const-table DIA apply (fem/dia_op.py) evaluates the P3 operator as
-~3900 tiny shifted-slice multiply-adds — correct, but op-count-bound on
-TPU (~0.83 ms/iter at 517k dofs, BENCH_r03).  This module reorganizes
-the SAME matrix around the hardware:
+~3900 small shifted-slice multiply-adds.  This module reorganizes the
+SAME matrix around dense contractions:
 
 - every (kind, slot) typed dof grid becomes one CHANNEL of a common
   zero-padded plane buffer ``[Zp, CP, LW]``: leading dim = z-plane,
-  sublanes = channels (padded to a multiple of 8), lanes = the (y, x)-
-  flattened plane with an in-plane halo ring and a 128-lane guard, so
-  EVERY lattice shift (dx, dy, dz) with |d|_inf <= 1 is (plane offset
-  dz, lane offset dy*Xp + dx);
-- the interior action is ONE MXU matmul per plane pair: the 15 shifted
-  source blocks are staged into a ``[D*CP, KP*TILE]`` VMEM scratch and
-  multiplied by the stacked interior weight matrix (HIGHEST precision —
-  bf16x6 passes — reproduces f32 products);
+  then channels (padded to a multiple of 8), then the (y, x)-flattened
+  plane with an in-plane halo ring and a 128-entry guard, so EVERY
+  lattice shift (dx, dy, dz) with |d|_inf <= 1 is (plane offset dz,
+  column offset dy*Xp + dx);
+- the interior action is ONE matrix product per plane: the 15 shifted
+  source blocks are stacked along the contraction axis and multiplied
+  by the stacked interior weight matrix;
 - ALL pure-z weight variation (grid truncation + Dirichlet planes,
   confined to <= 3 planes per end) is folded into per-boundary-plane
-  weight-delta matrices applied as predicated extra dots inside the
-  kernel — exact, not an approximation;
+  weight-delta matrices added to the interior weights of those planes;
 - the remaining deviation field of every term decomposes EXACTLY by
   inclusion-exclusion over its clamp table (see fem/conv_op.py:28-37)
   into y/x face profiles, zy/zx/yx edge cross terms and a corner
   residual, each supported within 3 planes of the axis ends; they are
   applied as six stacked slab einsums (O(surface) data) and summed into
-  the kernel output under one fused final-mask pass.
+  the interior output under one fused final-mask pass.
 
 Parity: this is the reference's assembled operator on the cube path
 (src/poisson_problem.cpp:117-141; matrix-free action call site
 src/cgpoisson_problem.cpp:193-204) — built FROM the verified
 DiaOperator tables and pinned equal to its apply_np in
-tests/test_flat_op.py (both the Pallas kernel in interpret mode and
-the XLA twin).
+tests/test_flat_op.py.
 
-STATUS — measured on v5e at ~510-517k dofs (barriered 100-apply
-chains): P2 594 us/apply, P3 1123 us/apply; the production fused-slice
-DIA form runs P2 ~160 us and P3 ~830 us, so this form is NOT wired as
-the default.  The interior matmul alone is ~300 us (the [K, KP*TILE]
-VMEM restage moves ~5 MB/plane-pair through the scratch and the MXU
-dot at CP=32 rows underfills the systolic array); the slab-correction
-einsums add a comparable cost in relayouts.  Kept as an opt-in
-(`-use_flat` via cgpoisson) and a tested foundation: the channel-plane
-layout is the right shape for a future kernel that fuses corrections
-into the plane loop and runs CP>=128 channel blocks.
+Opt-in (`-use_flat 1` via cgpoisson); the fused-slice DIA/strip forms
+are the default.
 """
 
 from __future__ import annotations
@@ -57,7 +45,7 @@ import numpy as np
 
 from tpufem.fem.dia_op import DiaOperator
 
-_GUARD = 128   # left lane guard >= max |in-plane shift| (dy*Xp + dx)
+_GUARD = 128   # left guard >= max |in-plane shift| (dy*Xp + dx)
 _W = 3         # deviation width per axis end (clamp-map shell)
 
 
@@ -95,7 +83,7 @@ class FlatOperator:
     BYX: jnp.ndarray       # [D, C, C, NS, NS] (y, x)
     CC: jnp.ndarray        # [D, C, C, NZP, NS, NS] corner residual
     fmask: jnp.ndarray     # [Zp, CP, LW] channel-extent mask
-    meta: Tuple            # static (geometry, channels, layout, pallas)
+    meta: Tuple            # static (geometry, channels, layout)
 
     def tree_flatten(self):
         return ((self.W0, self.AZT, self.slot_of, self.TY, self.TX,
@@ -118,15 +106,9 @@ class FlatOperator:
     def layout(self):
         return self.meta[2]
 
-    @property
-    def use_pallas(self) -> bool:
-        return self.meta[3]
-
     # -- construction ---------------------------------------------------------
     @classmethod
-    def from_dia(cls, dia: DiaOperator,
-                 use_pallas: Optional[bool] = None
-                 ) -> Optional["FlatOperator"]:
+    def from_dia(cls, dia: DiaOperator) -> Optional["FlatOperator"]:
         """Build from a const-mode scalar DiaOperator, or None when the
         structure does not fit (non-unit shifts, tiny grids, bs > 1)."""
         if dia.bs != 1 or not dia.is_const():
@@ -248,11 +230,9 @@ class FlatOperator:
                 r0 = _GUARD + (1 + y) * Xp + 1
                 fmask[1:1 + Zk, c, r0:r0 + Xk] = 1.0
 
-        if use_pallas is None:
-            use_pallas = jax.default_backend() == "tpu"
         geom = (C, CP, D, tuple(shifts), Zc, Yc, Xc, Yp, Xp, PF, TILE,
                 LW, KP, ZB, Zp, K, tuple(PZ), NS, tuple(kdims))
-        meta = (geom, tuple(channels), lay, bool(use_pallas))
+        meta = (geom, tuple(channels), lay)
         return cls(W0=jnp.asarray(W0), AZT=jnp.asarray(AZT),
                    slot_of=jnp.asarray(slot_arr), TY=jnp.asarray(TY),
                    TX=jnp.asarray(TX), BYZ=jnp.asarray(BYZ),
@@ -292,11 +272,7 @@ class FlatOperator:
 
     # -- apply ------------------------------------------------------------------
     def apply_flat(self, x: jnp.ndarray) -> jnp.ndarray:
-        if self.use_pallas:
-            yk = self._interior_pallas(x)
-        else:
-            yk = self._interior_xla(x)
-        return (yk + self._corrections(x)) * self.fmask
+        return (self._interior(x) + self._corrections(x)) * self.fmask
 
     def apply(self, u: jnp.ndarray) -> jnp.ndarray:
         """DiaOperator-compatible flat-dof-vector apply (tests / drop-in
@@ -304,93 +280,9 @@ class FlatOperator:
         return self.from_flat(self.apply_flat(self.to_flat(u))).astype(
             u.dtype)
 
-    # -- interior: Pallas kernel --------------------------------------------------
-    def _interior_pallas(self, x: jnp.ndarray) -> jnp.ndarray:
-        from jax.experimental import pallas as pl
-        from jax.experimental.pallas import tpu as pltpu
+    # -- interior -------------------------------------------------------------
+    def _interior(self, x: jnp.ndarray) -> jnp.ndarray:
         g = self._g
-        OFFS = [dy * g.Xp + dx for (dx, dy, dz) in g.shifts]
-        DZS = [dz for (dx, dy, dz) in g.shifts]
-        C, CP, D, K = g.C, g.CP, g.D, g.K
-        KP, TILE, LW, Zp, ZB = g.KP, g.TILE, g.LW, g.Zp, g.ZB
-        HIGH = jax.lax.Precision.HIGHEST
-        dn = (((1,), (0,)), ((), ()))
-
-        Zc = g.Zc
-
-        def kernel(slot_ref, x_ref, w0_ref, azt_ref, y_ref, s_ref):
-            gid = pl.program_id(0)
-            # the grid walks BUFFER planes bp = gid*KP + t (including
-            # the z halo); invalid planes write zeros below
-            for t in range(KP):
-                bp = gid * KP + t
-                for j in range(D):
-                    zi = jnp.clip(bp + DZS[j], 0, Zp - 1)
-                    s_ref[j * CP:(j + 1) * CP,
-                          t * TILE:(t + 1) * TILE] = x_ref[
-                        zi, :, _GUARD + OFFS[j]:_GUARD + OFFS[j] + TILE]
-            y = jax.lax.dot_general(w0_ref[:, :], s_ref[:, :], dn,
-                                    preferred_element_type=jnp.float32,
-                                    precision=HIGH)
-            for t in range(KP):
-                bp = gid * KP + t
-                valid = jnp.logical_and(bp >= 1, bp <= Zc)
-                y_ref[t, :, 0:_GUARD] = jnp.zeros((CP, _GUARD),
-                                                  jnp.float32)
-                y_ref[t, :, _GUARD + TILE:] = jnp.zeros(
-                    (CP, LW - _GUARD - TILE), jnp.float32)
-
-                @pl.when(valid)
-                def _(t=t, y=y):
-                    y_ref[t, :, _GUARD:_GUARD + TILE] = \
-                        y[:, t * TILE:(t + 1) * TILE]
-
-                @pl.when(jnp.logical_not(valid))
-                def _(t=t):
-                    y_ref[t, :, _GUARD:_GUARD + TILE] = jnp.zeros(
-                        (CP, TILE), jnp.float32)
-
-                sidx = jnp.where(valid,
-                                 slot_ref[0, jnp.clip(bp - 1, 0, ZB - 1)],
-                                 -1)
-
-                @pl.when(sidx >= 0)
-                def _(t=t, sidx=sidx):
-                    yc = jax.lax.dot_general(
-                        azt_ref[sidx],
-                        s_ref[:, t * TILE:(t + 1) * TILE], dn,
-                        preferred_element_type=jnp.float32,
-                        precision=HIGH)
-                    y_ref[t, :, _GUARD:_GUARD + TILE] = (
-                        y_ref[t, :, _GUARD:_GUARD + TILE] + yc)
-
-        return pl.pallas_call(
-            kernel,
-            grid=(Zp // KP,),
-            in_specs=[
-                pl.BlockSpec((1, ZB), lambda i: (0, 0),
-                             memory_space=pltpu.SMEM),
-                pl.BlockSpec((Zp, CP, LW), lambda i: (0, 0, 0),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((CP, K), lambda i: (0, 0),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec(tuple(self.AZT.shape), lambda i: (0, 0, 0),
-                             memory_space=pltpu.VMEM),
-            ],
-            # NOTE: index_map counts in BLOCK units (block i covers
-            # planes [i*KP, (i+1)*KP))
-            out_specs=pl.BlockSpec(
-                (KP, CP, LW), lambda i: (i, 0, 0),
-                memory_space=pltpu.VMEM),
-            out_shape=jax.ShapeDtypeStruct((Zp, CP, LW), jnp.float32),
-            scratch_shapes=[pltpu.VMEM((K, KP * TILE), jnp.float32)],
-            interpret=jax.default_backend() != "tpu",
-        )(self.slot_of, x, self.W0, self.AZT)
-
-    # -- interior: XLA twin (CPU golden path / fallback) --------------------------
-    def _interior_xla(self, x: jnp.ndarray) -> jnp.ndarray:
-        g = self._g
-        HIGH = jax.lax.Precision.HIGHEST
         xv = x[:, :, _GUARD:_GUARD + g.PF].reshape(g.Zp, g.CP, g.Yp, g.Xp)
         slot = self.slot_of[0, :g.Zc]
         WT = jnp.broadcast_to(self.W0, (g.Zc,) + self.W0.shape)
@@ -398,7 +290,7 @@ class FlatOperator:
                             self.AZT[jnp.clip(slot, 0)], 0.0)
         SH = self._shift_stack(xv)                    # [D, Zc, CP, Yc, Xc]
         SHK = jnp.concatenate([SH[j] for j in range(g.D)], axis=1)
-        y4 = jnp.einsum("zok,zkyx->zoyx", WT, SHK, precision=HIGH)
+        y4 = jnp.einsum("zok,zkyx->zoyx", WT, SHK)
         canvas = jnp.zeros((g.Zp, g.CP, g.Yp, g.Xp), dtype=jnp.float32)
         canvas = canvas.at[1:1 + g.Zc, :, 1:1 + g.Yc, 1:1 + g.Xc].set(y4)
         flat = canvas.reshape(g.Zp, g.CP, g.PF)
@@ -424,7 +316,6 @@ class FlatOperator:
         copies and dominated the apply)."""
         g = self._g
         C, w = g.C, _W
-        HIGH = jax.lax.Precision.HIGHEST
         xv = x[:, :, _GUARD:_GUARD + g.PF].reshape(
             g.Zp, g.CP, g.Yp, g.Xp)[:, :C]
         pzlo = [p for p in g.PZ if p < w]
@@ -463,16 +354,12 @@ class FlatOperator:
         SYX = jnp.stack([sh(d, ys=YS, xs=XS) for d in D_])
         SZYX = jnp.stack([sh(d, zs=ZS, ys=YS, xs=XS) for d in D_])
 
-        cy = jnp.einsum("doia,dziax->zoax", self.TY, SY, precision=HIGH)
-        cx = jnp.einsum("doia,dziya->zoya", self.TX, SX, precision=HIGH)
-        czy = jnp.einsum("doipa,dpiax->poax", self.BYZ, SZY,
-                         precision=HIGH)              # [NZP, C, NS, Xc]
-        czx = jnp.einsum("doipa,dpiya->poya", self.BZX, SZX,
-                         precision=HIGH)              # [NZP, C, Yc, NS]
-        cyx = jnp.einsum("doiab,dziab->zoab", self.BYX, SYX,
-                         precision=HIGH)              # [Zc, C, NS, NS]
-        ccc = jnp.einsum("doipab,dpiab->poab", self.CC, SZYX,
-                         precision=HIGH)              # [NZP, C, NS, NS]
+        cy = jnp.einsum("doia,dziax->zoax", self.TY, SY)
+        cx = jnp.einsum("doia,dziya->zoya", self.TX, SX)
+        czy = jnp.einsum("doipa,dpiax->poax", self.BYZ, SZY)              # [NZP, C, NS, Xc]
+        czx = jnp.einsum("doipa,dpiya->poya", self.BZX, SZX)              # [NZP, C, Yc, NS]
+        cyx = jnp.einsum("doiab,dziab->zoab", self.BYX, SYX)              # [Zc, C, NS, NS]
+        ccc = jnp.einsum("doipab,dpiab->poab", self.CC, SZYX)              # [NZP, C, NS, NS]
 
         def pads(block, z0, y0, x0):
             """zero-pad [nz, C, ny, nx] into [Zp, CP, Yp, Xp] at

@@ -3,9 +3,9 @@
 The reference links C kernels generated by FFCx from UFL forms
 (src/Poisson.py:31-33, src/Elasticity.py:39-40; build wiring
 src/CMakeLists.txt:23-33) and calls them cell-by-cell inside assembly
-loops.  The TPU-native design computes *all cells at once* as batched
-contractions of per-cell geometric factors against precomputed reference
-tensors — the FLOPs land in large matmuls that XLA tiles onto the MXU:
+loops.  Here *all cells are computed at once* as batched contractions
+of per-cell geometric factors against precomputed reference tensors —
+the FLOPs land in large matmuls:
 
   Poisson stiffness :  A_c = |detJ_c| * G_c[alpha,beta] . K[alpha,beta,i,j]
                        => one [C, 9] @ [9, n^2] matmul
@@ -41,7 +41,7 @@ def cell_geometry(coords: jnp.ndarray) -> Tuple[jnp.ndarray, jnp.ndarray]:
     """(Jinv [C, 3, 3], detJ [C]) from cell vertex coords [C, 4, 3].
 
     J[a, l] = d x_a / d xi_l; Jinv[l, a] = d xi_l / d x_a via the adjugate
-    (closed form beats LU for batched 3x3 on the VPU).
+    (closed form beats LU for batched 3x3).
     """
     E = coords[:, 1:4, :] - coords[:, 0:1, :]  # [C, l, a]
     J = jnp.swapaxes(E, 1, 2)  # [C, a, l]
@@ -154,8 +154,9 @@ def poisson_action_from_metric(G: jnp.ndarray, u_cells: jnp.ndarray,
     y_c = A_c @ u_c without materializing A_c (form M = action(a, un),
     src/Poisson.py:33).
 
-    Pipeline: u -> reference gradients at quadrature points (matmul on
-    MXU) -> per-cell metric contraction (VPU) -> transpose matmul back.
+    Pipeline: u -> reference gradients at quadrature points (matmul)
+    -> per-cell metric contraction (elementwise) -> transpose matmul
+    back.
     """
     dtype = u_cells.dtype
     D, wts, n, q = _action_tables(order)

@@ -5,8 +5,8 @@ src/poisson_problem.cpp:35-38, src/elasticity_problem.cpp:103-106 — family P,
 tetrahedron, ``lagrange_variant::gll_warped``).  Everything is precomputed at
 setup on the host in float64: node placement, basis coefficients via a
 generalized Vandermonde solve against the monomial basis, and the reference
-integral tensors the Pallas/XLA element kernels contract against
-(the TPU-native replacement for FFCx ``tabulate_tensor`` C kernels,
+integral tensors the element kernels contract against
+(the replacement for FFCx ``tabulate_tensor`` C kernels,
 reference: src/CMakeLists.txt:23-33).
 
 Reference cell: v0=(0,0,0), v1=(1,0,0), v2=(0,1,0), v3=(0,0,1).

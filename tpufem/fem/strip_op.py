@@ -1,30 +1,27 @@
-"""Channel-strip P2/P3 stencil operator: the DIA zone apply at full lanes.
+"""Channel-strip P2/P3 stencil operator: the DIA zone apply on wide rows.
 
-The production const-table DIA apply (fem/dia_op.py ``_apply_zones``)
-is exact and structurally minimal, but its element passes run on typed
-dof grids whose minor (x) extent is the lattice width — ~27 for P3 at
-517k dofs — so every VPU op uses 27 of 128 lanes and the apply is
-bandwidth-bound at ~21% lane efficiency (~0.83 ms/apply measured,
-BENCH_r03).  This module evaluates the SAME matrix with the SAME
-zone decomposition, but on a channel-resident layout built for the
-8x128 VPU:
+The const-table DIA apply (fem/dia_op.py ``_apply_zones``) is exact and
+structurally minimal, but its element passes run on typed dof grids
+whose minor (x) extent is the lattice width (~27 for P3 at 517k dofs),
+so every elementwise pass works on short rows.  This module evaluates
+the SAME matrix with the SAME zone decomposition on a channel-resident
+layout:
 
 - every (kind, slot) typed grid becomes one channel ``c`` of a buffer
-  ``[C, Zp, LW]``: per channel, z-planes are SUBLANES and the zero-
-  padded (y, x)-flattened plane (plus a 128-lane guard) is the LANE
-  axis, so every lattice shift (dx, dy, dz) is (sublane offset dz,
-  lane offset dy * Xp + dx) and every slice runs at full 128-lane
-  vregs;
-- each DIA term's weight field is stored as z-zone LANE STRIPS
-  (lo [3, TILE], mid [1, TILE] broadcast along z, hi [3, TILE] — or a
-  full [Zk, TILE] strip for short grids), exactly the decomposition
+  ``[C, Zp, LW]``: per channel, z-planes are rows and the zero-padded
+  (y, x)-flattened plane (plus a 128-entry guard) is the minor axis, so
+  every lattice shift (dx, dy, dz) is (row offset dz, column offset
+  dy * Xp + dx) and every slice is a long contiguous row;
+- each DIA term's weight field is stored as z-zone strips (lo [3, TILE],
+  mid [1, TILE] broadcast along z, hi [3, TILE], or a full [Zk, TILE]
+  strip for short grids), exactly the decomposition
   ``DiaOperator._build_zones_np`` uses: the clamp maps are identity
-  within 3 planes of each z end and constant between, so the mid
-  strip captures ALL in-plane (y, x) weight variation with O(plane)
-  weight bytes;
-- the apply is the identical bag of shifted-slice multiply-adds,
-  fused by XLA into one elementwise pass per (channel, zone) output
-  block — no gathers, no matmuls, no correction terms.
+  within 3 planes of each z end and constant between, so the mid strip
+  captures ALL in-plane (y, x) weight variation with O(plane) weight
+  bytes;
+- the apply is the identical bag of shifted-slice multiply-adds, fused
+  by XLA into one elementwise pass per (channel, zone) output block:
+  no gathers, no matmuls, no correction terms.
 
 Parity: this is the reference's assembled cube-path operator
 (src/poisson_problem.cpp:117-141; matrix-free action call site
@@ -33,33 +30,10 @@ DiaOperator tables and pinned equal to ``DiaOperator.apply_np`` in
 tests/test_strip_op.py, including end-to-end CG solves.
 
 The CG loop runs channel-resident (``to_strips`` once per solve,
-``apply_strips`` per iteration): pad/guard lanes and out-of-extent
-sublanes are EXACTLY zero in every strip, so the operator output
-stays clean-padded and dofwise dot products equal buffer dot
-products throughout the Krylov iteration.
-
-On TPU the apply runs as ONE Pallas invocation with x, y and the
-weight packs VMEM-resident (``_apply_pallas``): the XLA twin re-reads
-each shifted source slice from HBM (~49 slices per output channel,
-~123 MB per P3 apply at 517k dofs), while the kernel pays one read of
-x + the packs and one write of y (~14 MB) and is VPU compute-bound.
-The z-boundary rows are repaired by sparse precomputed delta rows
-(lo/hi minus mid; 732 of 7866 rows deviate for P3), so the kernel is
-the exact matrix.  Beyond the ~14 MB VMEM budget (P3 above ~900k
-dofs) the apply falls back to the XLA twin.
-
-STATUS — production CG loop (python -m tpufem --problem_type
-cgpoisson) at ~510-517k dofs on v5e, 100 iterations:
-
-  | form                    | P2 Gdof/s | P3 Gdof/s |
-  |-------------------------|-----------|-----------|
-  | const-DIA (fem/dia_op)  | 2.98      | 0.62      |
-  | strip, XLA twin         | 2.88      | 0.86      |
-  | strip, Pallas kernel    | 7.16      | 4.66      |
-
-(The DIA form's typed grids are ~27 lanes wide at P3, ~42 at P2, so
-its VPU passes waste 4-5x the 128-lane vregs; the strip layout fixes
-the lanes and the kernel removes the HBM re-read amplification.)
+``apply_strips`` per iteration): pad/guard entries and out-of-extent
+rows are EXACTLY zero in every strip, so the operator output stays
+clean-padded and dofwise dot products equal buffer dot products
+throughout the Krylov iteration.
 """
 
 from __future__ import annotations
@@ -73,7 +47,7 @@ import numpy as np
 
 from tpufem.fem.dia_op import DiaOperator
 
-_GUARD = 128  # left lane guard >= max |in-plane shift| (|dy| * Xp + |dx|)
+_GUARD = 128  # left guard >= max |in-plane shift| (|dy| * Xp + |dx|)
 _M = 3        # z-zone shell width (dia_op._SHELL + 1)
 
 
@@ -89,20 +63,16 @@ class StripOperator:
     strips: Tuple[jnp.ndarray, ...]  # per term: [Zk, TILE] full or
     #                                  lo [3, TILE] / mid [1, TILE] /
     #                                  hi [3, TILE] (see plan)
-    mid_pack: jnp.ndarray            # [NT, TILE] zone-term mid strips
-    dlt_pack: jnp.ndarray            # [ND, TILE] deviating boundary-row
-    #                                  deltas (lo/hi row minus mid)
     plan: Tuple                      # static per-term metadata
     meta: Tuple                      # static geometry bundle
 
     def tree_flatten(self):
-        return (self.strips, self.mid_pack, self.dlt_pack), (self.plan,
-                                                             self.meta)
+        return (self.strips,), (self.plan, self.meta)
 
     @classmethod
     def tree_unflatten(cls, aux, children):
         plan, meta = aux
-        return cls(children[0], children[1], children[2], plan, meta)
+        return cls(children[0], plan, meta)
 
     # geometry accessors -----------------------------------------------------
     @property
@@ -126,25 +96,13 @@ class StripOperator:
         """Flat BC mask of the underlying matrix (multigrid filtering)."""
         return self.meta[4]
 
-    @property
-    def kplan(self):
-        """Static per-output-channel kernel plan, or None:
-        (mid entries (mi, ci, dz, off), delta entries
-        (di, row, ci, dz, off)) per channel."""
-        return self.meta[5]
-
-    @property
-    def use_pallas(self) -> bool:
-        return self.meta[6]
-
     # -- construction ---------------------------------------------------------
     @classmethod
-    def from_dia(cls, dia: DiaOperator, dtype=jnp.float32,
-                 use_pallas: Optional[bool] = None
+    def from_dia(cls, dia: DiaOperator, dtype=jnp.float32
                  ) -> Optional["StripOperator"]:
         """Build from a const-mode scalar DiaOperator, or None when the
         structure does not fit (bs > 1, non-const, or in-plane shifts
-        beyond the lane guard)."""
+        beyond the guard)."""
         if dia.bs != 1 or not dia.is_const():
             return None
         lay = dia.layout
@@ -171,11 +129,6 @@ class StripOperator:
 
         plan: List[Tuple] = []
         strips: List[np.ndarray] = []
-        mids: List[np.ndarray] = []
-        dlts: List[np.ndarray] = []
-        kmid = [[] for _ in range(C)]   # per co: (mi, ci, dz, off)
-        kdlt = [[] for _ in range(C)]   # per co: (di, row, ci, dz, off)
-        any_full = False
         for term_meta, T in dia.terms():
             (ko, so, ki, si, d, (z0, z1, y0, y1, x0, x1), _c) = term_meta
             co = chan_of[(ko, so)]
@@ -190,7 +143,7 @@ class StripOperator:
                 continue
 
             def embed(planes: np.ndarray) -> np.ndarray:
-                """[nz, Yk, Xk] -> lane strips [nz, TILE] at (1 + y, 1 + x)."""
+                """[nz, Yk, Xk] -> strips [nz, TILE] at (1 + y, 1 + x)."""
                 nz = planes.shape[0]
                 canvas = np.zeros((nz, Yp, Xp))
                 canvas[:, 1:1 + Yk, 1:1 + Xk] = planes
@@ -206,55 +159,16 @@ class StripOperator:
                 if not (mid == mid[:1]).all():
                     return None
                 plan.append((co, ci, d[2], off, Zk, "zones"))
-                lo_s = embed(F[:_M])
-                mid_s = embed(F[_M: _M + 1])
-                hi_s = embed(F[Zk - _M:])
-                strips.append(lo_s)
-                strips.append(mid_s)
-                strips.append(hi_s)
-                # kernel form: mid applied over the FULL z range plus
-                # sparse per-row deltas where lo/hi rows deviate
-                kmid[co].append((len(mids), ci, d[2], off))
-                mids.append(mid_s[0])
-                for r in range(_M):
-                    if not np.array_equal(lo_s[r], mid_s[0]):
-                        kdlt[co].append((len(dlts), r, ci, d[2], off))
-                        dlts.append(lo_s[r] - mid_s[0])
-                    if not np.array_equal(hi_s[r], mid_s[0]):
-                        kdlt[co].append((len(dlts), Zk - _M + r, ci,
-                                         d[2], off))
-                        dlts.append(hi_s[r] - mid_s[0])
+                strips.append(embed(F[:_M]))
+                strips.append(embed(F[_M: _M + 1]))
+                strips.append(embed(F[Zk - _M:]))
             else:
                 plan.append((co, ci, d[2], off, Zk, "full"))
                 strips.append(embed(F))
-                any_full = True
 
-        bc_np = np.asarray(dia.bc_mask)
-        if any_full:
-            kplan = None
-            mid_pack = jnp.zeros((1, TILE), dtype=npdt)
-            dlt_pack = jnp.zeros((1, TILE), dtype=npdt)
-        else:
-            kplan = tuple((tuple(kmid[c]), tuple(kdlt[c]))
-                          for c in range(C))
-            mid_pack = jnp.asarray(np.stack(mids))
-            dlt_pack = jnp.asarray(np.stack(dlts) if dlts
-                                   else np.zeros((1, TILE), dtype=npdt))
-        # the fused kernel keeps x, y, mid and delta packs VMEM-resident
-        # (one pallas invocation, no grid): gate on the ~16 MB/core
-        # budget and fall back to the XLA apply beyond it
-        itemsize = np.dtype(npdt).itemsize
-        vmem = (2 * C * Zp * LW + (len(mids) + max(len(dlts), 1)) * TILE
-                ) * itemsize
-        if use_pallas is None:
-            use_pallas = (jax.default_backend() == "tpu"
-                          and vmem <= 14 * 2**20)
-        use_pallas = bool(use_pallas) and kplan is not None
         meta = (lay, tuple(channels), tuple(kdims),
-                (C, Zc, Yp, Xp, PF, TILE, LW, Zp), bc_np, kplan,
-                bool(use_pallas))
+                (C, Zc, Yp, Xp, PF, TILE, LW, Zp), np.asarray(dia.bc_mask))
         return cls(strips=tuple(jnp.asarray(s) for s in strips),
-                   mid_pack=mid_pack, dlt_pack=dlt_pack,
                    plan=tuple(plan), meta=meta)
 
     # -- layout conversion ------------------------------------------------------
@@ -290,80 +204,14 @@ class StripOperator:
 
     # -- apply ------------------------------------------------------------------
     def apply_strips(self, x: jnp.ndarray) -> jnp.ndarray:
-        """[C, Zp, LW] -> [C, Zp, LW]: fused-slice zone apply (the
-        VMEM-resident Pallas kernel on TPU when the buffers fit; the
-        XLA twin otherwise / on CPU)."""
-        if self.use_pallas:
-            return self._apply_pallas(x)
-        return self._apply_xla(x)
+        """[C, Zp, LW] -> [C, Zp, LW]: fused-slice zone apply.
 
-    def _apply_pallas(self, x: jnp.ndarray) -> jnp.ndarray:
-        """One Pallas invocation, everything VMEM-resident.
-
-        The XLA twin re-reads each shifted source slice from HBM (~49
-        slices per output channel: ~123 MB per P3 apply at 517k dofs,
-        measured 418 us); here x, y and the weight packs live in VMEM
-        for the whole apply, so HBM traffic drops to one read of x +
-        the packs and one write of y (~14 MB) and the apply is VPU
-        compute-bound.  Exactness: per channel the mid strip multiplies
-        the FULL z range and the sparse ``dlt_pack`` rows (lo/hi minus
-        mid, precomputed on host — 732 of 7866 boundary rows deviate
-        for P3) repair every z-boundary row — the same matrix, not an
-        approximation (pinned in tests against the XLA twin and
-        DiaOperator.apply_np)."""
-        from jax.experimental import pallas as pl
-        from jax.experimental.pallas import tpu as pltpu
-        C, Zc, Yp, Xp, PF, TILE, LW, Zp = self.dims
-        kplan = self.kplan
-        kdims = self.kdims
-        channels = self.channels
-        G = _GUARD
-
-        def kernel(x_ref, mid_ref, dlt_ref, y_ref):
-            for co in range(C):
-                Zk = kdims[channels[co][0]][0]
-                kmid, kdlt = kplan[co]
-                acc = jnp.zeros((Zk, TILE), dtype=x_ref.dtype)
-                for (mi, ci, dz, off) in kmid:
-                    src = x_ref[ci, 1 + dz: 1 + dz + Zk,
-                                G + off: G + off + TILE]
-                    acc = acc + mid_ref[mi: mi + 1, :] * src
-                y_ref[co, 0:1, :] = jnp.zeros((1, LW), dtype=x_ref.dtype)
-                y_ref[co, 1 + Zk:, :] = jnp.zeros((Zp - 1 - Zk, LW),
-                                                  dtype=x_ref.dtype)
-                y_ref[co, 1:1 + Zk, 0:G] = jnp.zeros((Zk, G),
-                                                     dtype=x_ref.dtype)
-                y_ref[co, 1:1 + Zk, G + TILE:] = jnp.zeros(
-                    (Zk, LW - G - TILE), dtype=x_ref.dtype)
-                y_ref[co, 1:1 + Zk, G:G + TILE] = acc
-                # sparse z-boundary repairs: read-modify-write on single
-                # output rows (static slices; dynamic_update_slice on
-                # values has no Mosaic lowering)
-                for (di, row, ci, dz, off) in kdlt:
-                    src = x_ref[ci, 1 + row + dz: 2 + row + dz,
-                                G + off: G + off + TILE]
-                    y_ref[co, 1 + row: 2 + row, G:G + TILE] = (
-                        y_ref[co, 1 + row: 2 + row, G:G + TILE]
-                        + dlt_ref[di: di + 1, :] * src)
-
-        return pl.pallas_call(
-            kernel,
-            in_specs=[pl.BlockSpec(memory_space=pltpu.VMEM)] * 3,
-            out_specs=pl.BlockSpec(memory_space=pltpu.VMEM),
-            out_shape=jax.ShapeDtypeStruct((C, Zp, LW), x.dtype),
-            interpret=jax.default_backend() != "tpu",
-        )(x, self.mid_pack, self.dlt_pack)
-
-    def _apply_xla(self, x: jnp.ndarray) -> jnp.ndarray:
-        """XLA twin of the apply (CPU golden path / VMEM-overflow
-        fallback).
-
-        Structure mirrors DiaOperator._apply_zones — per output channel
+        Structure mirrors DiaOperator._apply_zones: per output channel
         the z-lo / z-mid / z-hi zone accumulators collect every term's
         shifted-slice multiply-add and XLA fuses each zone into a single
-        elementwise pass; the mid strip is [1, TILE] broadcast along the
-        z sublanes, so weight traffic is O(plane) while all in-plane
-        (y, x) weight variation is exact."""
+        elementwise pass; the mid strip is [1, TILE] broadcast along z,
+        so weight traffic is O(plane) while all in-plane (y, x) weight
+        variation is exact."""
         C, Zc, Yp, Xp, PF, TILE, LW, Zp = self.dims
         m = _M
         acc = {}  # co -> list of zone accumulators
@@ -413,122 +261,3 @@ class StripOperator:
         use; production CG runs channel-resident via apply_strips)."""
         return self.from_strips(self.apply_strips(self.to_strips(u)),
                                 dtype=u.dtype)
-
-    # -- whole-CG kernel ---------------------------------------------------------
-    def cg_resident_bytes(self) -> int:
-        """VMEM residency of the in-kernel CG: b (in), x (out), p/s/r
-        scratch, plus the weight packs."""
-        C, Zc, Yp, Xp, PF, TILE, LW, Zp = self.dims
-        itemsize = self.mid_pack.dtype.itemsize
-        packs = (self.mid_pack.shape[0] + self.dlt_pack.shape[0]) * TILE
-        return (5 * C * Zp * LW + packs) * itemsize
-
-    @property
-    def cg_kernel_ok(self) -> bool:
-        """True when the WHOLE Chronopoulos-Gear CG loop fits VMEM-
-        resident (kernel plan available and 5 strip buffers + packs
-        within the ~16 MB/core budget)."""
-        return (self.kplan is not None
-                and self.cg_resident_bytes() <= 14 * 2**20)
-
-    def cg_pallas(self, b_strips: jnp.ndarray, rtol: float, maxit: int
-                  ) -> Tuple[jnp.ndarray, jnp.ndarray, jnp.ndarray]:
-        """The ENTIRE matrix-free CG solve as ONE Pallas invocation with
-        all Krylov state VMEM-resident: (x_strips, iterations, rel).
-
-        The per-iteration HBM traffic of the split form (kernel apply +
-        XLA dots/axpys) is ~5 full state streams; here it is ZERO — b
-        loads once, x stores once, and every iteration runs out of VMEM
-        at VPU speed.  The recurrence is the same Chronopoulos-Gear
-        rotation as ``la.cg.cg_solve_fused`` (identical trajectory in
-        exact arithmetic, same iteration counting and recurrence-
-        residual convergence test, reference src/cg.h:78) with one
-        state-shaving identity: s is updated IN PLACE as
-        s <- beta s + A r, and w.r is recovered from
-        s_new.r = beta (s_old.r) + w.r — saving the w buffer.
-        Convergence is enforced by freezing: once ||r||^2 <= rtol^2
-        ||r0||^2 the effective alpha is zeroed, so x and r stop moving
-        and the iteration counter stops — a masked fori_loop, which
-        lowers cleanly where a data-dependent while_loop may not.
-        """
-        from jax.experimental import pallas as pl
-        from jax.experimental.pallas import tpu as pltpu
-        C, Zc, Yp, Xp, PF, TILE, LW, Zp = self.dims
-        kplan = self.kplan
-        kdims = self.kdims
-        channels = self.channels
-        G = _GUARD
-        dt = b_strips.dtype
-        rtol2 = float(rtol) ** 2
-
-        def accum_apply(src_ref, out_ref, scale, mid_ref, dlt_ref):
-            """out <- scale * out + A src (both [C, Zp, LW] VMEM refs);
-            the same mid + sparse-delta plan as _apply_pallas.  The
-            z-boundary delta repairs are read-modify-writes on single
-            out_ref rows with STATIC slices — ``value.at[...].add`` has
-            no Mosaic lowering (scatter-add), same constraint
-            _apply_pallas documents."""
-            for co in range(C):
-                Zk = kdims[channels[co][0]][0]
-                kmid, kdlt = kplan[co]
-                acc = jnp.zeros((Zk, TILE), dtype=dt)
-                for (mi, ci, dz, off) in kmid:
-                    acc = acc + mid_ref[mi: mi + 1, :] * src_ref[
-                        ci, 1 + dz: 1 + dz + Zk, G + off: G + off + TILE]
-                out_ref[co, 1:1 + Zk, G:G + TILE] = (
-                    scale * out_ref[co, 1:1 + Zk, G:G + TILE] + acc)
-                for (di, row, ci, dz, off) in kdlt:
-                    upd = dlt_ref[di: di + 1, :] * src_ref[
-                        ci, 1 + row + dz: 2 + row + dz,
-                        G + off: G + off + TILE]
-                    out_ref[co, 1 + row: 2 + row, G:G + TILE] = (
-                        out_ref[co, 1 + row: 2 + row, G:G + TILE] + upd)
-
-        def kernel(b_ref, mid_ref, dlt_ref, x_ref, it_ref, rr_ref,
-                   p_ref, s_ref, r_ref):
-            zero = jnp.zeros((C, Zp, LW), dtype=dt)
-            x_ref[...] = zero
-            p_ref[...] = zero
-            s_ref[...] = zero
-            r_ref[...] = b_ref[...]
-            rr0 = jnp.sum(r_ref[...] * r_ref[...])
-            one = jnp.ones((), dtype=rr0.dtype)
-
-            def body(k, carry):
-                rr, rr_prev, alpha_prev, cnt = carry
-                live = rr > rtol2 * rr0
-                beta = jnp.where(k == 0, jnp.zeros_like(rr), rr / rr_prev)
-                # s <- beta s + A r;  w.r = s_new.r - beta s_old.r
-                sr_old = jnp.sum(s_ref[...] * r_ref[...])
-                accum_apply(r_ref, s_ref, beta.astype(dt), mid_ref, dlt_ref)
-                wr = jnp.sum(s_ref[...] * r_ref[...]) - beta * sr_old
-                alpha = rr / (wr - beta * rr / alpha_prev)
-                a_eff = jnp.where(live, alpha, jnp.zeros_like(alpha)
-                                  ).astype(dt)
-                p_ref[...] = r_ref[...] + beta.astype(dt) * p_ref[...]
-                x_ref[...] = x_ref[...] + a_eff * p_ref[...]
-                r_ref[...] = r_ref[...] - a_eff * s_ref[...]
-                rr_new = jnp.sum(r_ref[...] * r_ref[...])
-                # frozen once dead: a_eff = 0 keeps x and r fixed, so
-                # rr_new == rr and live stays False for every later k
-                return (jnp.where(live, rr_new, rr), rr, alpha,
-                        cnt + live.astype(jnp.int32))
-
-            rr, _, _, cnt = jax.lax.fori_loop(
-                0, maxit, body, (rr0, one, one, jnp.int32(0)))
-            it_ref[0, 0] = cnt
-            rr_ref[0, 0] = jnp.sqrt(rr / rr0).astype(jnp.float32)
-
-        x, it, rel = pl.pallas_call(
-            kernel,
-            in_specs=[pl.BlockSpec(memory_space=pltpu.VMEM)] * 3,
-            out_specs=[pl.BlockSpec(memory_space=pltpu.VMEM),
-                       pl.BlockSpec(memory_space=pltpu.SMEM),
-                       pl.BlockSpec(memory_space=pltpu.SMEM)],
-            out_shape=[jax.ShapeDtypeStruct((C, Zp, LW), dt),
-                       jax.ShapeDtypeStruct((1, 1), jnp.int32),
-                       jax.ShapeDtypeStruct((1, 1), jnp.float32)],
-            scratch_shapes=[pltpu.VMEM((C, Zp, LW), dt)] * 3,
-            interpret=jax.default_backend() != "tpu",
-        )(b_strips, self.mid_pack, self.dlt_pack)
-        return x, it[0, 0], rel[0, 0]

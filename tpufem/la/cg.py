@@ -92,11 +92,10 @@ def cg_solve_fused(action: Callable[[jnp.ndarray], jnp.ndarray],
 
     Identical Krylov trajectory to :func:`cg_solve` in exact arithmetic
     (same iterates, same residuals); finite-precision iterates differ in
-    the last bits because the update order differs.  Why it is faster on
-    TPU: the classic loop interleaves its axpys with reduction barriers
+    the last bits because the update order differs.  Why it is faster:
+    the classic loop interleaves its axpys with reduction barriers
     (alpha needs p.y before x/r update, beta needs r.r before the p
-    update — measured ~0.5 ms/iter of vector ops at 2.1M dofs, tripling
-    the operator apply); here
+    update), so its vector updates cannot fuse with the operator; here
 
     - the two reductions (r.r and w.r, w = A r) happen together right
       after the matvec (one fused pass over r and w);
@@ -108,9 +107,7 @@ def cg_solve_fused(action: Callable[[jnp.ndarray], jnp.ndarray],
       with alpha_k = rr_k / (w_k.r_k - beta_k rr_k / alpha_{k-1}),
       beta_k = rr_k / rr_{k-1} (Chronopoulos & Gear 1989; the s
       recurrence keeps s = A p without a second matvec).
-      The state stays in four separate [N] vectors: a stacked [4, N]
-      form pads the 4 rows to 8 VPU sublanes and measured 1.8-2.7x
-      slower on v5e.
+      The state stays in four separate [N] vectors.
 
     Convergence: ||r|| / ||r0|| < rtol on the recurrence residual
     (reference src/cg.h:78), checked as the loop condition so the

@@ -1,8 +1,7 @@
 """Structured geometric multigrid (the cube-path preconditioner).
 
 On the benchmark's structured mesh, algebraic multigrid's unstructured
-coarse operators force random gathers — the slowest primitive on TPU
-(see tpufem.fem.structured_op).  Nested Kuhn lattices admit an exact
+coarse operators force random gathers (see tpufem.fem.structured_op).  Nested Kuhn lattices admit an exact
 geometric hierarchy instead, with every ingredient a stencil/slice op:
 
 - h-coarsening: lattice (Nx, Ny, Nz) -> (Nx/2, ...); P1 prolongation is
@@ -46,7 +45,7 @@ from tpufem.mesh.structured import EDGE_TYPES, FACE_TYPES, BoxTetMesh
 def _interleave(A: jnp.ndarray, B: jnp.ndarray, axis: int) -> jnp.ndarray:
     """[a0, a1, b0, a2, ...]: weave A (n+1 slices) with B (n slices) along
     ``axis``.  Pure stack/reshape/concat — strided writes (``at[::2]``)
-    lower to scatter on TPU and are ~20x slower."""
+    lower to scatter."""
     n = B.shape[axis]
     Ah = jax.lax.slice_in_dim(A, 0, n, axis=axis)
     At = jax.lax.slice_in_dim(A, n, n + 1, axis=axis)
@@ -126,7 +125,7 @@ def prolong_p(v: jnp.ndarray, op_fine: StructuredOperator) -> jnp.ndarray:
     grids_out = []
     # vertex grid passthrough
     grids_out.append(v[..., None, :] if v.ndim == 4 else v[..., None])
-    tparams = _edge_interior_params(k, "gll_warped")
+    tparams = _edge_interior_params(k, "gll_warped").tolist()
     kinds = lay.kinds
     idx = 1
     if k >= 2:
@@ -160,7 +159,7 @@ def restrict_p(r_flat: jnp.ndarray, op_fine: StructuredOperator,
     grids = lay.split(rr)
     Nx, Ny, Nz = lay.Nx, lay.Ny, lay.Nz
     out = grids[0][..., 0, :]  # vertex part [Z+1, Y+1, X+1, bs]
-    tparams = _edge_interior_params(k, "gll_warped")
+    tparams = _edge_interior_params(k, "gll_warped").tolist()
     idx = 1
     if k >= 2:
         for t in range(7):
@@ -288,13 +287,10 @@ class GMG:
             op = make_level(m, k)
             dinv_np = 1.0 / op.diagonal_np()
             if k >= 2 and bs == 1 and use_conv:
-                # OPT-IN: Pk fine level as an MXU channel conv
+                # OPT-IN: Pk fine level as a channel conv
                 # (fem/conv_op.py) — a far smaller HLO than the
-                # ~1300-slice const-table form, but ~6x slower per apply
-                # on v5e (P2 0.65 vs 4.30 ms at 510k; XLA materializes
-                # im2col copies the shifted-slice form avoids), so the
-                # DIA form is the default and conv is the compile-size
-                # escape hatch.  The smoother only needs apply/bc_mask;
+                # ~1300-slice const-table form; the DIA form is the
+                # default and conv is the compile-size escape hatch.  The smoother only needs apply/bc_mask;
                 # p-transfers read .layout, which the conv op carries.
                 from tpufem.fem.conv_op import ConvStencilOp
                 from tpufem.fem.dia_op import DiaOperator
@@ -343,7 +339,7 @@ class GMG:
         Nx, Ny, Nz = dims
         if self.planar:
             # planar components lead: transfers vmap over the component
-            # axis as full-lane scalar grids
+            # axis as scalar grids
             return x.reshape((self.bs, Nz + 1, Ny + 1, Nx + 1))
         return x.reshape((Nz + 1, Ny + 1, Nx + 1) +
                          ((self.bs,) if self.bs > 1 else (1,)))
@@ -368,8 +364,7 @@ class GMG:
 
     def vcycle(self, r: jnp.ndarray, i: int = 0) -> jnp.ndarray:
         if i == len(self.levels):
-            return jnp.matmul(self.coarse_inv, r,
-                              precision=jax.lax.Precision.HIGHEST)
+            return jnp.matmul(self.coarse_inv, r)
         lv = self.levels[i]
         smooth = chebyshev_smoother(lv.op.apply, lv.dinv, lv.lmax,
                                     degree=self.smoother_degree)

@@ -3,7 +3,7 @@
 The reference runs the whole pipeline in double precision (PetscScalar =
 double, src/poisson_problem.cpp:27) and converges CG to ``-ksp_rtol
 1.0e-8`` (README.md:72) on the recurrence residual (src/cg.h:78).  The
-TPU production path solves in float32, where the recurrence residual
+float32 solve path solves in float32, where the recurrence residual
 keeps contracting long after the TRUE residual ||b - A x|| / ||b|| has
 stalled near f32 working precision (measured: recurrence 1e-8, true
 residual ~2e-5 at 50k dofs).

@@ -3,17 +3,27 @@
 Equivalent of the reference's rank-0 daemon thread reading
 ``/proc/self/stat`` every 100 ms and logging ``VSIZE=..., RSS=...``
 under a ``[MEM]`` pattern (reference: src/mem.cpp:18-38, started/joined
-around solve() at src/main.cpp:104-107,236-240).  Uses psutil; also
-reports device HBM stats when a TPU is attached.
+around solve() at src/main.cpp:104-107,236-240).  Reads
+``/proc/self/statm``; ``device_memory_stats`` reports the accelerator's
+own counters.
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import threading
-import time
 
 logger = logging.getLogger("tpufem")
+
+
+def read_statm() -> tuple:
+    """(VSIZE, RSS) of this process in bytes, from /proc/self/statm
+    (fields 1-2, counted in pages)."""
+    with open("/proc/self/statm") as f:
+        size, resident = f.read().split()[:2]
+    page = os.sysconf("SC_PAGE_SIZE")
+    return int(size) * page, int(resident) * page
 
 
 class MemoryProfiler:
@@ -23,13 +33,11 @@ class MemoryProfiler:
         self._thread: threading.Thread | None = None
 
     def _run(self) -> None:
-        import psutil
-        proc = psutil.Process()
-        page_gb = 1.0 / (1 << 30)
+        gb = 1.0 / (1 << 30)
         while not self._quit.is_set():
-            mi = proc.memory_info()
+            vsize, rss = read_statm()
             logger.info("[MEM] VSIZE = %.3f GB, RSS = %.3f GB",
-                        mi.vms * page_gb, mi.rss * page_gb)
+                        vsize * gb, rss * gb)
             self._quit.wait(self.interval)
 
     def start(self) -> "MemoryProfiler":
@@ -45,10 +53,7 @@ class MemoryProfiler:
 
 
 def device_memory_stats() -> dict:
-    """HBM usage of the first device, when the backend reports it."""
+    """Memory counters of the first local device (``peak_bytes_in_use``
+    and friends); empty where the backend reports none."""
     import jax
-    try:
-        stats = jax.local_devices()[0].memory_stats() or {}
-    except Exception:
-        stats = {}
-    return stats
+    return jax.local_devices()[0].memory_stats() or {}

@@ -2,8 +2,8 @@
 
 The reference builds its cube mesh through the full unstructured DOLFINx
 pipeline: ``mesh::create_box`` + PT-SCOTCH/ParMETIS partitioning + uniform
-refinement with repartitioning (reference: src/mesh.cpp:78-207).  On TPU the
-idiomatic design is radically simpler: the box mesh is a *closed-form index
+refinement with repartitioning (reference: src/mesh.cpp:78-207).  Here the
+design is radically simpler: the box mesh is a *closed-form index
 space*.  Every entity (vertex, edge, face, cell) of the Kuhn (6-tetrahedra)
 subdivision of an Nx x Ny x Nz lattice has a type + anchor coordinate, so
 

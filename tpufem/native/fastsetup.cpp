@@ -15,7 +15,7 @@
 //       greedy Vanek-Mandel-Brezina aggregation over a CSR strength
 //       graph (the serial equivalent of PyAMG standard_aggregation /
 //       PETSc GAMG's MIS aggregation; reference solver: GAMG,
-//       /root/reference/README.md:63-82)
+//       README.md:63-82 of the reference)
 
 #include <algorithm>
 #include <chrono>

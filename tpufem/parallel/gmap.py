@@ -7,7 +7,7 @@ a graph-partitioned mesh, src/mesh.cpp:153-186, and the
 ``common::Scatterer`` pack -> MPI -> unpack exchange,
 src/cgpoisson_problem.cpp:185-230).
 
-TPU-native design: the exchange is decomposed at SETUP into a static
+Design: the exchange is decomposed at SETUP into a static
 schedule of ``jax.lax.ppermute`` rounds.  Each round is a partial
 permutation of the shard axis (every shard sends at most one buffer and
 receives at most one), obtained by greedy edge-coloring of the shard

@@ -2,26 +2,28 @@
 
 The reference is an MPI program: every rank initializes MPI, builds its
 mesh partition, and PETSc spans ranks over the interconnect
-(/root/reference/src/main.cpp:246,272; node-level subcommunicator at
-src/mesh.cpp:164-180).  The TPU equivalent: a pod slice is driven by
-one PROCESS PER HOST, joined by ``jax.distributed.initialize``; a
-``jax.sharding.Mesh`` is then built over ``jax.devices()`` (the GLOBAL
+(src/main.cpp:246,272; node-level subcommunicator at
+src/mesh.cpp:164-180).  The JAX equivalent: a multi-host cluster is
+driven by one PROCESS PER HOST, joined by ``jax.distributed.initialize``;
+a ``jax.sharding.Mesh`` is then built over ``jax.devices()`` (the GLOBAL
 device list), and the same SPMD programs (tpufem.parallel.slab /
 rowshard) run unchanged — XLA routes the ``ppermute``/``psum``
-collectives over ICI within a host's chips and over DCN between hosts.
+collectives over the host's device links and over the network between
+hosts.
 
 Topology mapping (the "subcomm partitioning" analogue):
 - the slab decomposition is a 1-D ring; orienting the shard axis so
-  consecutive slabs sit on the same host keeps the halo ppermute on ICI
-  except at host boundaries (one DCN hop per host pair per direction);
+  consecutive slabs sit on the same host keeps the halo ppermute inside
+  a host except at host boundaries (one network hop per host pair per
+  direction);
 - the reference's node-leader subcommunicator trick (setup work done
   once per node) maps to the per-host builders below: under
   ``jax.make_array_from_callback`` each process materializes ONLY the
   shards it addresses — no host ever holds the global arrays.
 
 This module is smoke-tested with multiple CPU processes
-(tests/test_multihost.py spawns 2 processes x 4 virtual devices); on
-real hardware the same entry points span v5p/v5e hosts.
+(tests/test_multihost.py spawns 2 processes x 4 virtual devices); one
+process drives all the cards of a single host.
 """
 
 from __future__ import annotations

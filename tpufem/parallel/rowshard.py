@@ -3,8 +3,8 @@ UNSTRUCTURED meshes (and any assembled-CSR problem).
 
 Reference behavior matched: the spoke-mesh CI jobs run the assembled
 Poisson problem on multiple MPI ranks with CG + AMG to rtol 1e-8
-(/root/reference/.github/workflows/ccpp.yml:102-117, distributed
-create_mesh at src/mesh.cpp:362-368).  TPU-native design:
+(.github/workflows/ccpp.yml:102-117, distributed create_mesh at
+src/mesh.cpp:362-368).  Design:
 
 - **partition**: dofs are partitioned by a Morton space-filling curve
   over dof coordinates (tpufem.parallel.gmap.partition_cells_sfc) —
@@ -26,7 +26,7 @@ create_mesh at src/mesh.cpp:362-368).  TPU-native design:
   the fine->coarse restriction then exchanges only BOUNDARY-aggregate
   partial sums (a reverse scatter at ghost size), and the only psum in
   the V-cycle is at the SECOND coarse size (O(N/750)).  Below the
-  dense limit, level 1 is a replicated bf16 dense MXU level and the
+  dense limit, level 1 is a replicated bf16 dense level and the
   restriction is combined by ONE psum at first-coarse size (O(N/30)) —
   at that size replication is faster than latency-bound tiny
   collectives.  Either way iteration counts match the single-device
@@ -190,7 +190,7 @@ class ShardedEllSolver:
                 p_vals[s, dst] = Pv[sl]
             from tpufem.la.amg import SAAMG as _S
             # distribute level 1 whenever it is stored sparse (above the
-            # dense-MXU limit) — i.e. exactly when replicating it would
+            # dense limit) — i.e. exactly when replicating it would
             # not weak-scale; a dense level stays replicated (faster
             # than latency-bound collectives at O(N/30))
             nc0_ = int(amg.level_sizes[1])
@@ -416,7 +416,7 @@ class ShardedEllSolver:
                 rro = jnp.where(d["owned_mask"], rr, 0.0)
                 contrib = d["p_vals"] * rro[:, None]
                 if not dist_l1:
-                    # replicated (dense-MXU) level 1: restriction
+                    # replicated (dense) level 1: restriction
                     # rc = P^T rr, owner-computes — scatter-add each
                     # OWNED fine row's P-row into a coarse-length
                     # accumulator; ONE psum at coarse size (O(N/30))
@@ -531,10 +531,9 @@ class ShardedEllSolver:
 
     def _run(self, scale: float = 1.0):
         if "run" not in self._cache:
-            # AOT compile: hits the persistent compilation cache; the
-            # dispatch-path compiler does not (see tpufem.aot)
-            self._cache["run"] = self._build_program().lower(
-                self.data, self.repl, self.suffix).compile()
+            from tpufem.aot import lower
+            self._cache["run"] = lower(self._build_program(), self.data,
+                                       self.repl, self.suffix).compile()
         data = self.data
         if scale != 1.0:  # perturb so pipelined timing reps can't dedup
             data = dict(data, b=data["b"] * scale)

@@ -147,9 +147,9 @@ def problem(mesh, order: int, cfg: Config) -> common.Problem:
         bc = DirichletBC.from_space(space, facets)
 
     # component-PLANAR vector layout for the structured P1 solve: the
-    # node-interleaved layout puts the 3 components on the 128-lane
-    # minor axis (3/128 utilization; the interleaved bs=3 apply measured
-    # ~1.7 ms at 468k dofs vs ~0.1 ms planar).  Only when every solver
+    # node-interleaved layout puts the 3 components on the minor axis,
+    # so every shifted slice is a stride-3 access; planar components
+    # are contiguous scalar grids.  Only when every solver
     # piece supports it: P1 DIA + GMG/Jacobi/none (AMG works on the
     # assembled interleaved CSR).
     pc_type = cfg.solver.get("pc_type")
